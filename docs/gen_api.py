@@ -17,7 +17,8 @@ MODULES = [
     "ssspy_tpu.io", "ssspy_tpu.utils.dataset", "ssspy_tpu.utils.select_pair",
     "ssspy_tpu.utils.flooring", "ssspy_tpu.utils.checkpoint",
     "ssspy_tpu.utils.profiling", "ssspy_tpu.ops.splitc",
-    "ssspy_tpu.ops.pallas_kernels", "ssspy_tpu.parallel", "ssspy_tpu.native",
+    "ssspy_tpu.ops.pallas_kernels", "ssspy_tpu.ops.defaults", "ssspy_tpu.parallel",
+    "ssspy_tpu.native", "ssspy_tpu.utils.device",
     "ssspy_tpu.pipeline", "ssspy_tpu.fast",
 ]
 

@@ -10,13 +10,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)  # run from anywhere without installing
 sys.path.insert(0, os.path.join(_ROOT, "tests"))
 
-# The examples drive the host STFT through jnp.fft, which FFT-less TPU
-# runtimes reject — run the demos on CPU. On-device runs are exercised by
-# scripts/tpu_smoke.py and scripts/tpu_bench.py (which keep FFT work off
-# the device entirely).
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
 # class-API branches demo the parity surface, which matches the f64 NumPy
 # reference (complex64 class paths keep the reference's eps=1e-10, which
 # underflows on high-dynamic-range mixtures; the --fast branches use the

@@ -4,7 +4,7 @@ Emulates a GPU user: the whole class pipeline in single precision on a
 high-dynamic-range mixture. The reference's default eps=1e-10 flooring
 is f64-calibrated and NaNs here after ~150 iterations; passing
 ``flooring_fn="f32"`` (or "dtype") selects the measured-stable eps=1e-6
-calibration the TPU fast paths use. See docs/walkthroughs and
+calibration the fast paths use. See docs/walkthroughs and
 tests/test_f32_class_mode.py for the full per-family matrix.
 """
 

@@ -1,9 +1,7 @@
 """Dense GaussMNMF: full-rank spatial covariances + Wiener separation.
 
 The heaviest model in the library — see docs/walkthroughs/gauss-mnmf.md.
-``--fast`` runs the split-complex fast path whose per-iteration batched
-inverse + Wiener congruence products are one fused VMEM-resident Pallas
-kernel on TPU.
+``--fast`` runs the split-complex fast path.
 """
 
 import sys

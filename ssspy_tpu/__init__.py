@@ -1,11 +1,11 @@
-"""ssspy_tpu: TPU-native blind source separation built on JAX/XLA/Pallas.
+"""ssspy_tpu: blind source separation built on JAX/XLA/Pallas.
 
 A ground-up re-design of the capabilities of ``tky823/ssspy`` (the NumPy
-reference) for TPU hardware:
+reference) as compiled accelerator programs:
 
 - every separation run compiles to a single XLA program (``lax.scan`` over an
   immutable state pytree instead of a Python loop over mutable attributes),
-- per-frequency-bin updates are batched with ``vmap`` and feed the MXU,
+- per-frequency-bin updates are batched over the whole bin axis,
 - multi-device scaling shards the frequency-bin axis over a
   ``jax.sharding.Mesh`` (see :mod:`ssspy_tpu.parallel`),
 - small-matrix hot kernels (2x2 GEVD, PSD projection) have closed-form /

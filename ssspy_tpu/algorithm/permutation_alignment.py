@@ -2,7 +2,7 @@
 
 Parity targets: ssspy/algorithm/permutation_alignment.py:12-275.
 
-TPU-native re-design: both solvers are greedy/sequential over frequency
+Re-design: both solvers are greedy/sequential over frequency
 bins with an argmax over all ``n_sources!`` permutations per bin. The
 reference loops in Python with in-place writes; here each solver is a
 ``lax.scan`` over bins carrying the running state, with the permutation

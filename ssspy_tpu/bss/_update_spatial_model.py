@@ -5,14 +5,14 @@ ISS2, IPA, block-decomposition VCD). These are the hot kernels of the whole
 framework: every auxiliary-function method calls one of them once per outer
 iteration.
 
-TPU-native design decisions:
+Design decisions:
 
 - The per-source / per-pair sweeps are *mathematically* sequential (later
   sources must see earlier updates), so the source loop is kept — but
   unrolled at trace time (N <= 8 for audio), with every inner operation
   batched over the full frequency-bin axis. Each sweep compiles to one XLA
   program whose inner ops are (n_bins, M, M)-batched solves / closed-form
-  2x2 GEVDs that tile onto the MXU/VPU.
+  2x2 GEVDs.
 - ISS2's split/concatenate choreography is replaced by static gather
   indices computed at trace time (no O(N) memory shuffles per pair).
 - All flooring is user-swappable, mirroring the reference's safety model.

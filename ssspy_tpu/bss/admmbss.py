@@ -65,7 +65,7 @@ class ADMMBSSBase(ProxBSSBase):
         self.output = _separate(self.input, self.demix_filter)
         return self.output
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Shared ADMM state plumbing (two auxiliary/dual pairs); ADMMBSS
     # delegates to admm_iva_step_sc (L21 penalty, probed numerically —
@@ -325,7 +325,7 @@ class ADMMBSS(ADMMBSSBase):
 
         return step
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
 
     def _sc_engine_blockers(self) -> List[str]:
         blockers = []

@@ -3,7 +3,7 @@
 Parity target: ssspy/bss/base.py:10-89 (``IterativeMethodBase``: n_iter
 loop, loss history, callback dispatch).
 
-TPU-native re-design: the reference mutates ``self.*`` inside a Python
+Re-design: the reference mutates ``self.*`` inside a Python
 loop. Here every algorithm defines three pure functions over an immutable
 state pytree —
 
@@ -78,13 +78,13 @@ class IterativeMethodBase:
         """Write state back to reference-compatible attributes."""
         raise NotImplementedError("Implement 'commit_state' method.")
 
-    # ---- optional split-complex engine (complex-free TPU runtimes) --------
+    # ---- optional split-complex engine (``impl="fast"``) ------------------
     #
     # Subclasses that can express their update on the planar split-complex
     # kernels (ssspy_tpu.ops.splitc) implement this second trio; __call__
-    # then routes through it when the backend rejects complex dtypes (or
-    # the user forces ``impl="fast"``). Same driver, same scan fusion —
-    # only the state encoding differs ([real, imag] f32 planes).
+    # routes through it when the user asks for ``impl="fast"``. Same
+    # driver, same scan fusion — only the state encoding differs ([real,
+    # imag] f32 planes).
 
     def init_state_sc(self):
         """Build the initial split-complex state pytree."""
@@ -171,17 +171,9 @@ class IterativeMethodBase:
 
         ``sc=True`` drives the split-complex engine (``*_sc`` trio)
         instead of the complex one — same scan fusion, same callback
-        semantics, complex-free programs throughout.
+        semantics, real f32 programs throughout.
         """
         state = self._state
-
-        # Complex-free TPU runtimes cannot execute the complex64 class API;
-        # fail fast with the fast-path alternative instead of an opaque
-        # backend UNIMPLEMENTED mid-trace.
-        if not sc and any(jnp.iscomplexobj(leaf) for leaf in jax.tree.leaves(state)):
-            from ..utils.backend import require_complex_support
-
-            require_complex_support(type(self).__name__)
 
         commit = self.commit_state_sc if sc else self.commit_state
         if self.callbacks is not None:

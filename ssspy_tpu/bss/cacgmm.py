@@ -4,7 +4,7 @@ Parity target: ssspy/bss/cacgmm.py (CACGMM + CACGMMBase): EM over
 unit-norm observation vectors with soft-mask separation; supports
 ``n_sources > n_channels`` (underdetermined).
 
-TPU-native design: state is ``{alpha (N,I), B (N,I,M,M)}``; one EM
+Design: state is ``{alpha (N,I), B (N,I,M,M)}``; one EM
 iteration (E-step posterior -> M-step mixing/covariance -> trace
 normalization) is a pure step fused into one ``lax.scan``. The E-step
 quadratic ``z^H B^{-1} z`` batches over (sources, bins, frames) as one
@@ -370,16 +370,14 @@ class CACGMM(CACGMMBase):
 
         return loss
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Delegates the same init/step/loss/commit contract to the planar f32
     # EM kernels (ssspy_tpu.ops.splitc.cacgmm_step_sc), so
     # ``CACGMM(...)(spectrogram)`` keeps the reference's single-call UX
-    # (ssspy/bss/cacgmm.py:423-738) on backends that reject complex
-    # dtypes. ``impl="fast"`` forces this engine anywhere (it matches
-    # ssspy_tpu.fast.fast_cacgmm's EM trajectory exactly given the same
-    # rng); ``impl="auto"`` selects it only when the complex path cannot
-    # run. All complex arrays (input, covariances, output) stay
+    # (ssspy/bss/cacgmm.py:423-738). ``impl="fast"`` selects this engine
+    # (it matches ssspy_tpu.fast.fast_cacgmm's EM trajectory exactly given
+    # the same rng). All complex arrays (input, covariances, output) stay
     # host-side NumPy; the permutation solvers run on device with the
     # covariance passed as its two real planar parts (the solvers only
     # permute them, so the planar split is transparent).

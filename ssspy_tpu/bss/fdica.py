@@ -9,7 +9,7 @@ contrast is per-scalar, not per-bin-vector as in IVA), so permutation
 alignment across bins follows the iteration loop
 (ssspy/bss/fdica.py:239-281). The iteration itself compiles to one
 ``lax.scan`` XLA program; the per-bin weighted covariance is a single
-einsum over (bins x sources x frames) feeding the MXU.
+einsum over (bins x sources x frames).
 """
 
 import functools
@@ -205,13 +205,12 @@ class FDICABase(IterativeMethodBase):
             self.output = _separate(self.input, self.demix_filter)
         return self.output
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Same init/step/loss/commit contract, delegated to the planar f32
     # FDICA kernels (ssspy_tpu.ops.splitc), so ``AuxLaplaceFDICA(...)``
-    # keeps the reference's single-call UX (ssspy/bss/fdica.py:846-1246)
-    # on backends that reject complex dtypes. ``impl="fast"`` forces
-    # this engine anywhere (matches ssspy_tpu.fast.fast_aux_fdica /
+    # keeps the reference's single-call UX (ssspy/bss/fdica.py:846-1246).
+    # ``impl="fast"`` selects this engine (it matches ssspy_tpu.fast.fast_aux_fdica /
     # fast_grad_fdica exactly); all complex arrays — input, committed
     # output/filters, the post-loop permutation alignment and scale
     # restoration — stay host-side NumPy.

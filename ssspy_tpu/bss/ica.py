@@ -3,12 +3,12 @@
 Parity target: ssspy/bss/ica.py (GradICA, NaturalGradICA, FastICA,
 GradLaplaceICA, NaturalGradLaplaceICA; bases GradICABase/FastICABase).
 
-TPU-native design: the demixing matrix is a single real ``(N, M)``
+Design: the demixing matrix is a single real ``(N, M)``
 matrix (no frequency axis), state is the immutable pytree
 ``{"X": input, "W": demix}`` and every run compiles to one
 ``lax.scan`` program via :class:`IterativeMethodBase`. The per-sample
 score/outer-product statistics are one matmul over the full sample
-axis — the MXU-friendly formulation of the reference's
+axis — the matmul formulation of the reference's
 ``mean(Phi[:, None, :] * Y[None, :, :], axis=-1)`` (ssspy/bss/ica.py:539-541).
 """
 

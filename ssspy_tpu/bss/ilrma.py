@@ -5,14 +5,14 @@ ILRMABase): NMF source model (optionally with a shared-basis latent
 partitioning), MM/ME multiplicative updates, spatial updates via
 IP1/IP2/ISS1/ISS2/IPA, power- or projection-back normalization.
 
-TPU-native design: state is the immutable pytree
+Design: state is the immutable pytree
 ``{X, W|Y, T, V[, Z]}`` and one iteration =
 ``source model -> spatial model -> normalization`` fused into a single
 ``lax.scan`` XLA program. The reference's broadcast-heavy
 multiplicative updates (e.g. ssspy/bss/ilrma.py:1113-1126) are
 reformulated as batched einsum contractions over the frame axis — the
 (n_sources, n_bins, n_basis) x (n_basis, n_frames) products are plain
-matmuls that XLA tiles onto the MXU.
+matmuls.
 """
 
 import functools
@@ -53,7 +53,7 @@ source_algorithms = ["MM", "ME"]
 
 
 def _scalar_weighted_covariance(X, varphi):
-    """``U[i,n] = mean_t varphi[n,i,t] x_it x_it^H`` (one einsum -> MXU)."""
+    """``U[i,n] = mean_t varphi[n,i,t] x_it x_it^H`` (one einsum)."""
     n_frames = X.shape[-1]
     return jnp.einsum("nit,pit,qit->inpq", varphi.astype(X.dtype), X, X.conj()) / n_frames
 
@@ -331,16 +331,15 @@ class ILRMABase(IterativeMethodBase):
             self.output = Y_scaled
             self.demix_filter = _ls_demix(Y_scaled, X)
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Same init/step/loss/commit contract, delegated to the planar f32
     # kernels (ssspy_tpu.ops.splitc generic ILRMA engine), so
     # ``GaussILRMA(...)(spectrogram)`` keeps the reference's single-call
-    # UX on backends that reject complex dtypes. ``impl="fast"`` forces
-    # this engine anywhere (matches ssspy_tpu.fast.fast_gauss_ilrma /
-    # fast_t_ilrma / fast_ggd_ilrma exactly given the same rng);
-    # ``impl="auto"`` selects it only when the complex path cannot run.
-    # All complex arrays stay host-side NumPy.
+    # UX. ``impl="fast"`` selects this engine (it matches
+    # ssspy_tpu.fast.fast_gauss_ilrma / fast_t_ilrma / fast_ggd_ilrma
+    # exactly given the same rng). All complex arrays stay host-side
+    # NumPy.
 
     def _sc_model_params(self) -> Optional[dict]:
         """Generic-SC-kernel parameters (model/dof/shape/me); None = no SC engine."""

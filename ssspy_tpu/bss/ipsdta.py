@@ -7,7 +7,7 @@ axis into ``n_blocks`` sub-bands, with a remainder path of blocks one
 bin larger (ssspy/bss/ipsdta.py:512-582). The spatial update is
 vector-wise coordinate descent (VCD).
 
-TPU-native design: the two ragged block shapes become two static
+Design: the two ragged block shapes become two static
 pytree leaves (``T0``/``T1`` etc.), each processed by the same traced
 helpers — two compiled sub-kernels instead of ragged shapes, exactly
 as SURVEY.md §7 prescribes. One iteration (basis GEVD update ->
@@ -321,7 +321,7 @@ class BlockDecompositionIPSDTABase(IPSDTABase):
         Y = _separate(state["X"], state["W"])
         return self._split_bins(Y, axis=1)
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # The MM + VCD iteration delegates to the planar f32 kernel
     # (ssspy_tpu.ops.splitc.ipsdta_vcd_step_sc), matching

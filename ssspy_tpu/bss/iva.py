@@ -9,8 +9,7 @@ Every algorithm is a pure ``step(state) -> state`` over an immutable
 pytree, fused into a single ``lax.scan`` XLA program by
 :class:`ssspy_tpu.bss.base.IterativeMethodBase`. The per-bin demixing
 updates batch over the full frequency axis; the weighted covariance
-(the per-iteration hot op, ssspy/bss/iva.py:1780-1793) is one einsum that
-XLA maps onto the MXU.
+(the per-iteration hot op, ssspy/bss/iva.py:1780-1793) is one einsum.
 """
 
 import functools
@@ -562,7 +561,7 @@ class FastIVABase(IVABase):
         self.output = _separate(self.whitened_input, self.demix_filter)
         return self.output
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Whitening runs on device in planar form (``whiten_sc``), so the SC
     # class trajectory matches ssspy_tpu.fast.fast_fast_iva /
@@ -1024,16 +1023,15 @@ class AuxIVA(AuxIVABase):
 
         return loss
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Delegates the same init/step/loss/commit contract to the planar f32
     # kernels in ssspy_tpu.ops.splitc, so ``AuxIVA(...)(spectrogram)``
-    # keeps the reference's single-call UX (ssspy/bss/iva.py:1637-1672)
-    # on backends that reject complex dtypes. ``impl="fast"`` forces this
-    # engine anywhere (it matches ssspy_tpu.fast.fast_auxiva exactly);
-    # ``impl="auto"`` selects it only when the backend cannot run the
-    # complex path. All complex arrays (input, committed output and
-    # demixing filters, scale restoration) stay host-side NumPy.
+    # keeps the reference's single-call UX (ssspy/bss/iva.py:1637-1672).
+    # ``impl="fast"`` selects this engine (it matches
+    # ssspy_tpu.fast.fast_auxiva exactly). All complex arrays (input,
+    # committed output and demixing filters, scale restoration) stay
+    # host-side NumPy.
 
     def _sc_engine_blockers(self) -> List[str]:
         """Config knobs that keep this instance off the SC engine ([] = eligible)."""

@@ -5,7 +5,7 @@ full spatial-covariance model with multichannel Wiener-filter
 separation; FastGaussMNMF replaces the dense covariance with jointly
 diagonalized ``Q``-space diagonal loadings updated by IP1/IP2.
 
-TPU-native notes: the reference materializes ``np.tile`` copies of the
+Design notes: the reference materializes ``np.tile`` copies of the
 (I,T,M,M) covariance stack before each batched solve
 (ssspy/bss/mnmf.py:858-871); here broadcasting feeds the same batched
 ``jnp.linalg.solve`` without the copies, and the trace pairs
@@ -47,19 +47,10 @@ def _trace_real(A, B):
 
 
 def _mnmf_covariance_jit(Xs):
-    """Instant covariances (+ fused-kernel lanes relayout on real TPU f32)."""
-    from ..ops.pallas_kernels import prepare_xx_lanes
-    from ..ops.splitc import _on_tpu_backend, instant_covariance_sc
+    """Instant covariances of a planar mixture."""
+    from ..ops.splitc import instant_covariance_sc
 
-    fused = _on_tpu_backend() and Xs.dtype == jnp.float32
-
-    @jax.jit
-    def compute(Xs):
-        XXs = instant_covariance_sc(Xs)
-        lanes = prepare_xx_lanes(XXs[0], XXs[1]) if fused else None
-        return XXs, lanes
-
-    return compute(Xs)
+    return jax.jit(instant_covariance_sc)(Xs)
 
 
 class MNMFBase(IterativeMethodBase):
@@ -102,7 +93,7 @@ class MNMFBase(IterativeMethodBase):
         self.output = self.separate(self.input)
         return self.output
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Subclasses opt in by providing _reset_sc/init_state_sc/
     # make_step_sc/make_loss_sc/commit_state_sc/separate_sc; the MM
@@ -440,7 +431,7 @@ class GaussMNMF(MNMF):
 
         return loss
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
 
     def _sc_engine_blockers(self) -> List[str]:
         blockers = []
@@ -468,10 +459,9 @@ class GaussMNMF(MNMF):
 
         Xs = jax.device_put(np.asarray(to_split(self.input), dtype=np.float32))
         # the instant covariance is loop-invariant: compute it ONCE here
-        # (with its fused-kernel lanes relayout where active) and carry
-        # it through the scan — XLA does not hoist the Gram einsums out
-        # of a fused scan body (see CLAUDE.md / admm_quad_inv_sc)
-        XXs, lanes = _mnmf_covariance_jit(Xs)
+        # and carry it through the scan — XLA does not hoist the Gram
+        # einsums out of a fused scan body (see admm_quad_inv_sc)
+        XXs = _mnmf_covariance_jit(Xs)
         state = {
             "XX": XXs,
             "T": jax.device_put(self.basis),
@@ -480,8 +470,6 @@ class GaussMNMF(MNMF):
         }
         if self.partitioning:
             state["Z"] = jax.device_put(self.latent)
-        if lanes is not None:
-            state["lanes"] = lanes
         return state
 
     def make_step_sc(self):
@@ -501,7 +489,6 @@ class GaussMNMF(MNMF):
                 Z=state.get("Z"),
                 eps=eps,
                 normalization=normalization,
-                XX_lanes=state.get("lanes"),
             )
             if partitioning:
                 T, V, Hs, Z = out
@@ -773,7 +760,7 @@ class FastGaussMNMF(FastMNMFBase):
 
         return loss
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
 
     def _sc_engine_blockers(self) -> List[str]:
         blockers = []

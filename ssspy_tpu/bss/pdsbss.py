@@ -189,7 +189,7 @@ class PDSBSS(PDSBSSBase):
 
         return step
 
-    # ---- split-complex engine (complex-free TPU runtimes) ------------------
+    # ---- split-complex engine (``impl="fast"``) ----------------------------
     #
     # Delegates to the planar f32 PDS kernel with the IVA L21 penalty
     # (ssspy_tpu.ops.splitc.pds_iva_step_sc), matching

@@ -1,12 +1,9 @@
-"""Production TPU separators over the split-complex fast paths.
+"""Separators over the split-complex fast paths.
 
-The class API (:mod:`ssspy_tpu.bss`) traces complex64 programs — correct
-on CPU and standard TPU backends, where XLA lowers complex arithmetic to
-real pairs. These entry points instead run the hand-written planar
-``[real, imag]`` f32 scans from :mod:`ssspy_tpu.ops.splitc` (the
-measured numbers in BENCHMARKS.md), never materializing a complex array
-on device — required on TPU runtimes without complex support, and
-fastest everywhere else on TPU.
+The class API (:mod:`ssspy_tpu.bss`) traces complex64 programs. These
+entry points instead run the hand-written planar ``[real, imag]`` f32
+scans from :mod:`ssspy_tpu.ops.splitc`, never materializing a complex
+array on device.
 
 >>> Y, W = fast_auxiva(spectrogram, n_iter=100)              # (N,I,T), (I,N,M)
 >>> Y, (T, V) = fast_gauss_ilrma(spectrogram, n_basis=8, n_iter=100)
@@ -769,8 +766,7 @@ def fast_gauss_mnmf(
 @functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
 def _auxiva_wave_program(xw, n_iter: int, algorithm: str, n_fft: int, hop: int, length: int):
     """Single XLA program: stft_sc -> AuxIVA scan -> scale restoration ->
-    istft_sc. No complex dtype and no FFT op anywhere — runs on
-    complex-free TPU backends end to end."""
+    istft_sc. No complex dtype and no FFT op anywhere."""
     import jax.numpy as jnp
 
     from .ops.splitc import _csep, csolve_matrix
@@ -862,8 +858,7 @@ def fast_gauss_mnmf_dense(
     device in split-complex form; the multichannel Wiener separation
     runs on the host. Returns ``(separated, (T, V, H))``.
     """
-    from .ops.pallas_kernels import prepare_xx_lanes
-    from .ops.splitc import _on_tpu_backend, gauss_mnmf_step_sc, instant_covariance_sc
+    from .ops.splitc import gauss_mnmf_step_sc, instant_covariance_sc
 
     X = np.asarray(spectrogram)
     n_channels, n_bins, n_frames = X.shape
@@ -880,17 +875,12 @@ def fast_gauss_mnmf_dense(
 
     Xs = jax.device_put(to_split(X))
 
-    # the fused TPU path wants the covariances in lanes layout; compute
-    # the relayout ONCE outside the scan (per-iteration it costs ~25%)
-    fused = _on_tpu_backend()
-
     @functools.partial(jax.jit, static_argnums=(1,))
     def run(carry, n):
         XXs = instant_covariance_sc(Xs)
-        lanes = prepare_xx_lanes(XXs[0], XXs[1]) if fused else None
 
         def body(c, _):
-            return gauss_mnmf_step_sc(XXs, *c, XX_lanes=lanes), None
+            return gauss_mnmf_step_sc(XXs, *c), None
 
         return lax.scan(body, carry, None, length=n)[0]
 

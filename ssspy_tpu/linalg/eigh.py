@@ -5,9 +5,9 @@ Parity targets: ssspy/linalg/eigh.py:8-207.
 Design: the general path uses ``jnp.linalg.eigh`` (XLA-native, batched).
 The generalized problem ``A z = lamb B z`` is reduced via Cholesky
 whitening, supporting the reference's types 1/2/3. The 2x2 path
-(:func:`eigh2`) uses a fully closed-form Hermitian eigensolver: on TPU this
-is pure VPU element-wise math over the whole (bins, pairs) batch, with no
-iterative eigen kernel at all.
+(:func:`eigh2`) uses a fully closed-form Hermitian eigensolver: pure
+element-wise math over the whole (bins, pairs) batch, with no iterative
+eigen kernel at all.
 """
 
 from typing import Optional

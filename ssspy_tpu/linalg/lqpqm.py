@@ -2,7 +2,7 @@
 
 Parity target: ssspy/linalg/lqpqm.py:13-352 (the IPA inner solver).
 
-TPU-native re-design: the reference splits the batch with boolean fancy
+Re-design: the reference splits the batch with boolean fancy
 indexing into singular (``v = 0``) and non-singular subsets and runs a
 Newton iteration with a data-dependent early exit. Here both branches are
 computed for the full batch and merged with ``jnp.where`` masks, and the
@@ -249,8 +249,7 @@ def _find_largest_root_real(A, B, C):
     """Real-only-arithmetic twin of :func:`_find_largest_root`.
 
     Bit-for-bit replicates the reference's behavior (quirks included) with
-    no complex intermediates, so it lowers on TPU runtimes that reject
-    complex dtypes (the split-complex IPA fast path uses it):
+    no complex intermediates (the split-complex IPA fast path uses it):
 
     - positive discriminant: the reference takes the real part of the
       *principal-branch* complex cube root, which for ``-Q/2 + sqrt(D) < 0``

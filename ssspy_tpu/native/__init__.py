@@ -1,12 +1,14 @@
 """ctypes bindings for the native host runtime (see ssspy_native.cpp).
 
-The shared library is compiled on first import from the bundled C++
-source (g++ is part of the target image); if no compiler is available
-the callers fall back to their pure-NumPy paths, so the package works
-everywhere while production hosts get the native data plane.
+The shared library is compiled on first use from the bundled C++
+source into this package's directory, under a name keyed on a hash of
+the source, so an edited source is rebuilt and a library built from
+other source is never loaded. Without a compiler (or a writable package
+directory) the callers fall back to their pure-NumPy paths.
 """
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -26,7 +28,13 @@ __all__ = [
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ssspy_native.cpp")
-_LIB_NAME = "libssspy_native.so"
+
+
+def _lib_name() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return f"libssspy_native-{digest}.so"
+
 
 _lib = None
 _load_attempted = False
@@ -63,36 +71,24 @@ def load() -> Optional[ctypes.CDLL]:
         return _lib
     _load_attempted = True
 
-    candidates = [os.path.join(_HERE, _LIB_NAME)]
-    cache_dir = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")), "ssspy_tpu"
-    )
-    candidates.append(os.path.join(cache_dir, _LIB_NAME))
-
-    for path in candidates:
-        if os.path.exists(path):
-            try:
-                _lib = _bind(ctypes.CDLL(path))
-                return _lib
-            except OSError:
-                pass
-
-    # compile into the cache dir (package dir may be read-only)
-    for target_dir in [_HERE, cache_dir]:
+    final = os.path.join(_HERE, _lib_name())
+    if os.path.exists(final):
         try:
-            os.makedirs(target_dir, exist_ok=True)
-            with tempfile.NamedTemporaryFile(
-                suffix=".so", dir=target_dir, delete=False
-            ) as tmp:
-                tmp_path = tmp.name
-            if _compile(tmp_path):
-                final = os.path.join(target_dir, _LIB_NAME)
-                os.replace(tmp_path, final)
-                _lib = _bind(ctypes.CDLL(final))
-                return _lib
-            os.unlink(tmp_path)
+            _lib = _bind(ctypes.CDLL(final))
+            return _lib
         except OSError:
-            continue
+            pass
+
+    try:
+        with tempfile.NamedTemporaryFile(suffix=".so", dir=_HERE, delete=False) as tmp:
+            tmp_path = tmp.name
+        if _compile(tmp_path):
+            os.replace(tmp_path, final)
+            _lib = _bind(ctypes.CDLL(final))
+            return _lib
+        os.unlink(tmp_path)
+    except OSError:
+        pass
     return None
 
 

@@ -1,6 +1,6 @@
 // Native host-side runtime for ssspy_tpu.
 //
-// The TPU compute path is JAX/XLA; this library covers the host data
+// The accelerator compute path is JAX/XLA; this library covers the host data
 // plane around it (the parts a production deployment keeps off the
 // Python interpreter):
 //   - a RIFF/WAVE PCM codec (reader/writer; parity target

@@ -1,11 +1,9 @@
-"""TPU kernel fast paths.
+"""Kernels of the fast paths.
 
 - :mod:`.splitc` — split-complex (planar real/imag) formulations of the
-  hot separation math; TPU MXUs have no complex datapath, so the
-  production path carries ``(2, ...)`` f32 arrays.
-
-Pallas small-matrix kernels land here as they are promoted from the
-``jnp.linalg`` fallbacks after parity.
+  hot separation math, carried as ``(2, ...)`` f32 arrays.
+- :mod:`.pallas_kernels` — the Triton-route weighted covariance.
+- :mod:`.defaults` — what each ``impl="auto"`` means per platform.
 """
 
 from . import splitc

@@ -1,15 +1,14 @@
 """Batched small-matrix symmetric eigensolver (parallel cyclic Jacobi).
 
-``jnp.linalg.eigh`` on TPU lowers to a QDWH-based spectral divide-and-
-conquer built for large matrices; for the (batch, n, n) problems the
-split-complex kernels solve (n <= 16: embedded Hermitian pencils, PSD
-projections, LQPQM reductions) it is the dominant cost of the IPA and
-cACGMM fast paths. This module implements fixed-sweep cyclic Jacobi with
-a round-robin parallel ordering: each round applies n/2 disjoint Givens
-rotations as ONE dense orthogonal similarity built from precomputed
-one-hot masks — three batched (n x n) matmuls per round, no gathers, no
-data-dependent control flow. Quadratic convergence gives f32 machine
-precision in a handful of sweeps.
+An eigh for the (batch, n, n) problems the split-complex kernels solve
+(n <= 16: embedded Hermitian pencils, PSD projections, LQPQM
+reductions), selected with ``impl="jacobi"`` where they take one. This
+module implements fixed-sweep cyclic Jacobi with a round-robin parallel
+ordering: each round applies n/2 disjoint Givens rotations as ONE dense
+orthogonal similarity built from precomputed one-hot masks — three
+batched (n x n) matmuls per round, no gathers, no data-dependent control
+flow. Quadratic convergence gives f32 machine precision in a handful of
+sweeps.
 """
 
 import functools
@@ -81,9 +80,7 @@ def _schedule(n: int):
     return Mcc, Mss, Ires, Epq, Epp, Eqq
 
 
-def jacobi_eigh(
-    A, sweeps: Optional[int] = None, tiny: float = 1e-30, impl: str = "auto"
-):
+def jacobi_eigh(A, sweeps: Optional[int] = None, tiny: float = 1e-30):
     """Eigendecomposition of real symmetric ``(..., n, n)`` matrices.
 
     Drop-in for ``jnp.linalg.eigh`` on small n: returns ``(lamb, V)``
@@ -92,43 +89,10 @@ def jacobi_eigh(
     n — measured on f32 PSD batches incl. ill-conditioned members:
     6 sweeps is converged (bit-identical to 12) through n=32, n=64/128
     need 8 (6 leaves ~1e-4 relative error there).
-
-    ``impl``: ``"xla"`` applies each round's disjoint rotations as one
-    dense similarity built from one-hot masks (three batched matmuls per
-    round); ``"lanes"`` runs the VMEM-resident Pallas kernel
-    (:func:`ssspy_tpu.ops.pallas_kernels.jacobi_eigh_lanes`) where each
-    rotation is an elementwise row/column FMA in batch-in-lanes layout —
-    the batched ``(B, n, n)`` matmuls of the xla form lower
-    pathologically on the TPU backend at small ``n`` (measured ~11x for
-    the prox Gram eighs). ``"lanes_interpret"`` is the Pallas
-    interpreter (CPU parity tests); ``"auto"`` picks lanes on f32 TPU
-    backends for ``n <= 32`` with a large enough batch.
     """
     n = A.shape[-1]
     if sweeps is None:
         sweeps = 6 if n <= 32 else 8
-    if impl == "auto":
-        from .splitc import _on_tpu_backend
-
-        n_batch = 1
-        for d in A.shape[:-2]:
-            n_batch *= d
-        impl = (
-            "lanes"
-            if (
-                _on_tpu_backend()
-                and A.dtype == jnp.float32
-                and 2 <= n <= 32
-                and n_batch >= 64
-            )
-            else "xla"
-        )
-    if impl in ("lanes", "lanes_interpret"):
-        from .pallas_kernels import jacobi_eigh_lanes
-
-        return jacobi_eigh_lanes(
-            A, sweeps=sweeps, tiny=tiny, interpret=(impl == "lanes_interpret")
-        )
     dtype = A.dtype
     Mcc, Mss, Ires, Epq, Epp, Eqq = (
         jnp.asarray(m, dtype) for m in _schedule(n)

@@ -1,16 +1,16 @@
 """Device-mesh scaling for BSS separation runs.
 
 The reference (ssspy) is single-process NumPy; its only "parallelism" is
-vectorization over frequency bins (SURVEY.md §2.7). On TPU the same math
-scales over a 2-D :class:`jax.sharding.Mesh`:
+vectorization over frequency bins (SURVEY.md §2.7). Here the same math
+scales over a 2-D :class:`jax.sharding.Mesh` of devices:
 
 - ``dp`` axis — data parallelism over an utterance batch (a new leading
-  axis the reference does not have; it amortizes compilation and feeds
-  the MXU, since demixing matrices are tiny M<=8),
+  axis the reference does not have; it amortizes compilation and fills
+  the device, since demixing matrices are tiny M<=8),
 - ``bin`` axis — sequence-style parallelism over the frequency axis:
   every per-bin demixing update (IP1/IP2/ISS/ILRMA/...) is independent
   across bins, so the inner loop needs **zero collectives**; only loss
-  reductions cross shards (XLA inserts ``psum`` over ICI automatically).
+  reductions cross shards (XLA inserts the ``psum`` automatically).
 
 Tensor/pipeline/expert parallelism are intentionally absent: there is no
 tensor large enough to split (cf. SURVEY.md §2.7 checklist).
@@ -23,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from ..ops.defaults import sharded
 
 __all__ = [
     "make_mesh",
@@ -66,6 +68,17 @@ __all__ = [
     "make_batched_hva_runner_sc",
     "make_batched_ica_runner",
 ]
+
+
+def _sharded_jit(fn: Callable, **jit_kwargs) -> Callable:
+    """``jax.jit`` of ``fn`` traced under :func:`ssspy_tpu.ops.defaults.sharded`,
+    so every ``impl="auto"`` inside picks a partitionable implementation."""
+
+    def traced(*args):
+        with sharded():
+            return fn(*args)
+
+    return jax.jit(traced, **jit_kwargs)
 
 
 def make_mesh(
@@ -114,7 +127,7 @@ def auxiva_ip1_step(X, W, eps=1e-10):
     ``X``: mixture ``(M, I, T)``; ``W``: demixing ``(I, N, M)``.
     Weighted covariance + sequential IP sweep — the per-iteration hot
     path (reference ssspy/bss/iva.py:1736-1793), expressed as batched
-    einsum/solve over the full bin axis so XLA tiles it onto the MXU.
+    einsum/solve over the full bin axis.
     """
     Y = jnp.einsum("inm,mit->nit", W, X)
     varphi = _laplace_weight(Y, eps)  # (N, T)
@@ -216,7 +229,7 @@ def shard_batched_run(
         W, _ = lax.scan(body, W, None, length=n_iter)
         return W
 
-    jitted = jax.jit(
+    jitted = _sharded_jit(
         run,
         in_shardings=(x_sharding, w_sharding),
         out_shardings=w_sharding,
@@ -248,9 +261,7 @@ def make_batched_auxiva_runner(mesh: Optional[Mesh] = None) -> Callable:
 
 # ---- split-complex fast path (planar [real, imag] leading axis) ------------
 #
-# TPU MXUs have no complex datapath and some TPU runtimes reject complex
-# dtypes entirely; the production fast path carries (2, ...) f32 arrays.
-# See ssspy_tpu.ops.splitc.
+# The fast path carries (2, ...) f32 arrays; see ssspy_tpu.ops.splitc.
 
 
 def _sc_step(Xs, Ws):
@@ -336,7 +347,7 @@ def shard_state_run(mesh: Mesh, step_fn: Callable, *, y_bin_axis: int = 3, ndim:
         Y, _ = lax.scan(body, Y, None, length=n_iter)
         return Y
 
-    jitted = jax.jit(
+    jitted = _sharded_jit(
         run, in_shardings=(y_sharding,), out_shardings=y_sharding, static_argnums=(1,)
     )
 
@@ -602,7 +613,7 @@ def shard_pytree_run(
         carry, _ = lax.scan(body, carry, None, length=n_iter)
         return carry
 
-    jitted = jax.jit(
+    jitted = _sharded_jit(
         run,
         in_shardings=(x_sharding, carry_shardings),
         out_shardings=carry_shardings,
@@ -646,7 +657,7 @@ def make_batched_ilrma_runner_sc(mesh: Optional[Mesh] = None) -> Callable:
     (dp, -, bin, -); activation ``V``: ``(batch, N, K, T)`` sharded
     (dp, -, -, -) — ``V`` couples all bins through the NMF update, so
     XLA inserts one ``psum`` over the ``bin`` axis per basis/activation
-    contraction (the only collectives in the program, riding ICI).
+    contraction (the only collectives in the program).
     """
     if mesh is None:
         mesh = make_mesh()
@@ -726,7 +737,7 @@ def make_batched_fast_mnmf_runner_sc(mesh: Optional[Mesh] = None) -> Callable:
     M)`` sharded (dp, -, bin, -, -); basis ``T``: ``(batch, N, I, K)``
     sharded (dp, -, bin, -); activation ``V``: ``(batch, N, K, T)``
     replicated over ``bin`` (it couples all bins — XLA inserts one
-    ``psum`` over ICI per activation contraction, the ILRMA pattern);
+    ``psum`` per activation contraction, the ILRMA pattern);
     loadings ``D``: ``(batch, I, N, M)`` sharded (dp, bin, -, -).
 
     At non-divisible bin counts the internal padding shifts the
@@ -895,7 +906,7 @@ def make_batched_ica_runner(
 
         return lax.scan(body, W, None, length=n_iter)[0]
 
-    return jax.jit(
+    return _sharded_jit(
         run,
         in_shardings=(x_sharding, w_sharding),
         out_shardings=w_sharding,
@@ -950,7 +961,7 @@ def make_batched_hva_runner_sc(
         carry, _ = lax.scan(body, carry, None, length=n_iter)
         return carry
 
-    jitted = jax.jit(
+    jitted = _sharded_jit(
         run,
         in_shardings=(x_sharding, carry_shardings),
         out_shardings=carry_shardings,
@@ -1037,7 +1048,7 @@ def make_batched_gauss_mnmf_runner_sc(
         carry, _ = lax.scan(body, carry, None, length=n_iter)
         return carry
 
-    jitted = jax.jit(
+    jitted = _sharded_jit(
         run,
         in_shardings=(xx_sharding, carry_shardings),
         out_shardings=carry_shardings,
@@ -1076,7 +1087,8 @@ def make_batched_auxiva_wave_runner_sc(
     into ONE XLA program. The whole serving pipeline, multi-chip.
     """
 
-    from ..ops.splitc import _csep, csolve_matrix
+    from ..ops.defaults import auto_impl
+    from ..ops.splitc import _csep, auxiva_ip1_step_sc, csolve_matrix
     from ..transform import istft_sc, stft_sc
 
     if mesh is None:
@@ -1088,6 +1100,8 @@ def make_batched_auxiva_wave_runner_sc(
     w_sharding = NamedSharding(mesh, P(dp, None, b, None, None))
 
     def run(xw, n_iter):
+        solve = auto_impl("wave_solve")
+        step = jax.vmap(lambda X, W: auxiva_ip1_step_sc(X, W, solve_impl=solve))
         n_batch, n_channels, length = xw.shape
         Xs = jax.vmap(lambda w: stft_sc(w, n_fft=n_fft, hop_length=hop))(xw)
         Xs = jax.lax.with_sharding_constraint(Xs, spec_sharding)
@@ -1101,7 +1115,7 @@ def make_batched_auxiva_wave_runner_sc(
         W0 = jax.lax.with_sharding_constraint(W0, w_sharding)
 
         def body(W, _):
-            return batched_auxiva_ip1_step_sc(Xs, W), None
+            return step(Xs, W), None
 
         W, _ = lax.scan(body, W0, None, length=n_iter)
 
@@ -1110,7 +1124,7 @@ def make_batched_auxiva_wave_runner_sc(
         Er = jnp.broadcast_to(
             jnp.eye(n_channels, dtype=Xs.dtype), Wr.shape
         )
-        Winv_r, Winv_i = csolve_matrix(Wr, Wi, Er, jnp.zeros_like(Er))
+        Winv_r, Winv_i = csolve_matrix(Wr, Wi, Er, jnp.zeros_like(Er), impl=solve)
         sr, si = Winv_r[..., 0, :], Winv_i[..., 0, :]  # (B, I, N)
         Wr2 = Wr * sr[..., :, None] - Wi * si[..., :, None]
         Wi2 = Wr * si[..., :, None] + Wi * sr[..., :, None]
@@ -1120,4 +1134,4 @@ def make_batched_auxiva_wave_runner_sc(
             lambda y: istft_sc(y, n_fft=n_fft, hop_length=hop, length=length)
         )(Ysep)
 
-    return jax.jit(run, in_shardings=(x_sharding,), static_argnums=(1,))
+    return _sharded_jit(run, in_shardings=(x_sharding,), static_argnums=(1,))

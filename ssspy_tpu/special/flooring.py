@@ -38,7 +38,7 @@ def dtype_flooring(input, eps64: float = EPS, eps32: float = F32_EPS):
 
     float32/complex64 operands get the f32-calibrated floor, everything
     else the reference's f64-calibrated default — so one configuration
-    is safe whether the run is a complex64 GPU/TPU session or an x64
+    is safe whether the run is a complex64 GPU session or an x64
     parity run.
     """
     eps = eps32 if jnp.finfo(input.dtype).bits <= 32 else eps64

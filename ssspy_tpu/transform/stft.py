@@ -14,8 +14,10 @@ Framing uses a static strided gather; the whole transform is one XLA
 program batched over arbitrary leading (channel / utterance) axes.
 """
 
+import functools
 from typing import Optional, Union
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -119,13 +121,13 @@ def istft(
     return out
 
 
-# ---- split-complex DFT-as-matmul (complex-free TPU path) ---------------------
+# ---- split-complex DFT-as-matmul ----------------------------------------------
 #
 # The framed DFT is two f32 matmuls against precomputed cos/sin matrices
-# (n_fft x n_bins, e.g. 512 x 257 — MXU-native shapes), producing planar
-# [real, imag] output directly. Complex-free TPU runtimes (no FFT op, no
-# complex dtypes) run the full waveform -> spectrogram -> separation chain
-# on device this way; numerically it matches jnp.fft.rfft to ~1e-5 in f32.
+# (n_fft x n_bins, e.g. 512 x 257), producing planar [real, imag] output
+# directly for the planar fast paths (fast_auxiva_wave, the sharded
+# waveform runner); numerically it matches jnp.fft.rfft to ~1e-5 in f32
+# at full matmul precision.
 
 
 def _dft_matrices(n_fft: int, dtype=np.float32):
@@ -182,8 +184,7 @@ def stft_sc(
     """Split-complex STFT: ``(*, n_samples)`` f32 -> ``(2, *, n_bins, n_frames)``.
 
     Same conventions and scaling as :func:`stft`, with the DFT expressed
-    as two real matmuls so it lowers on FFT-less, complex-free TPU
-    backends and feeds the planar fast paths directly.
+    as two real matmuls that feed the planar fast paths directly.
     """
     if hop_length is None:
         hop_length = n_fft // 2
@@ -194,8 +195,11 @@ def stft_sc(
 
     C, S = _dft_matrices(n_fft, dtype=x.dtype)
     scale = 1.0 / jnp.sum(win)
-    spec_r = (frames @ C) * scale
-    spec_i = -(frames @ S) * scale
+    # full f32 products: a reduced-precision DFT (TF32 by default on a
+    # GPU) costs the transform its round-trip accuracy
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    spec_r = mm(frames, C) * scale
+    spec_i = -mm(frames, S) * scale
     # (*, n_frames, n_bins) -> (2, *, n_bins, n_frames)
     return jnp.stack(
         [jnp.swapaxes(spec_r, -2, -1), jnp.swapaxes(spec_i, -2, -1)], axis=0
@@ -225,7 +229,8 @@ def istft_sc(
     win = get_window(window, n_fft).astype(Xr.dtype)
 
     Ct, St = _idft_matrices(n_fft, dtype=Xr.dtype)
-    frames = Xr @ Ct + Xi @ St  # (*, n_frames, n_fft)
+    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    frames = mm(Xr, Ct) + mm(Xi, St)  # (*, n_frames, n_fft)
     frames = frames * jnp.sum(win) * win
 
     total = (n_frames - 1) * hop_length + n_fft

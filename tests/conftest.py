@@ -1,15 +1,16 @@
 """Test configuration.
 
 Tests run on CPU with 8 virtual devices (for sharding tests) and x64
-enabled (for parity against the float64 NumPy reference). The TPU fast
-path is complex64; dtype-sensitive tests check both where relevant.
+enabled (for parity against the float64 NumPy reference). The fast
+paths are f32; dtype-sensitive tests check both where relevant. Tests
+that need a CUDA device carry the ``gpu`` marker and skip here.
 """
 
 import os
 import sys
 
-# Force CPU: the session env may pin JAX_PLATFORMS to the TPU platform, but
-# the test suite needs x64 (complex128 parity) and virtual multi-device CPU.
+# Force CPU: the environment may select the GPU, but the test suite needs
+# x64 (complex128 parity) and virtual multi-device CPU.
 os.environ["JAX_PLATFORMS"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:

@@ -70,48 +70,3 @@ def test_chol_unrolled_matches_lapack():
         L1 = np.asarray(_chol_unrolled(jnp.asarray(S)))
         L2 = np.linalg.cholesky(S)
         np.testing.assert_allclose(L1, L2, atol=1e-10)
-
-
-@pytest.mark.parametrize("n", [2, 4, 7, 8, 14, 16])
-def test_jacobi_lanes_matches_xla(n):
-    # the Pallas batch-in-lanes form (interpret mode off-TPU) applies the
-    # same rotation schedule as the masked-matmul xla form; results agree
-    # to f32 association-order roundoff
-    rng = np.random.default_rng(n)
-    A = rng.standard_normal((130, n, n)).astype(np.float32)
-    A = A + A.swapaxes(-1, -2)
-    lamb_x, _ = jacobi_eigh(jnp.asarray(A), impl="xla")
-    lamb_l, V = jacobi_eigh(jnp.asarray(A), impl="lanes_interpret")
-    scale = np.abs(np.asarray(lamb_x)).max()
-    np.testing.assert_allclose(
-        np.asarray(lamb_l), np.asarray(lamb_x), atol=1e-4 * scale
-    )
-    AV = A @ np.asarray(V)
-    VL = np.asarray(V) * np.asarray(lamb_l)[..., None, :]
-    np.testing.assert_allclose(AV, VL, atol=1e-4 * scale)
-    VtV = np.asarray(jnp.swapaxes(V, -1, -2)) @ np.asarray(V)
-    np.testing.assert_allclose(
-        VtV, np.broadcast_to(np.eye(n), VtV.shape), atol=1e-5
-    )
-
-
-def test_jacobi_lanes_pads_partial_block():
-    # batch smaller than (and not dividing) the lane block: identity
-    # padding must not leak into the results
-    rng = np.random.default_rng(3)
-    A = rng.standard_normal((5, 8, 8)).astype(np.float32)
-    A = A + A.swapaxes(-1, -2)
-    lamb, _ = jacobi_eigh(jnp.asarray(A), impl="lanes_interpret")
-    lamb_ref = np.linalg.eigvalsh(A.astype(np.float64))
-    np.testing.assert_allclose(np.asarray(lamb), lamb_ref, atol=1e-4)
-
-
-def test_jacobi_lanes_tied_diagonal_pairs_rotate():
-    A = np.zeros((3, 4, 4), np.float32)
-    for b in range(3):
-        A[b] = np.diag([2.0, 2.0, 1.0, 3.0])
-        A[b, 0, 1] = A[b, 1, 0] = 0.7
-    lamb, _ = jacobi_eigh(jnp.asarray(A), impl="lanes_interpret")
-    np.testing.assert_allclose(
-        np.asarray(lamb), np.linalg.eigvalsh(A.astype(np.float64)), atol=1e-5
-    )

@@ -1,18 +1,19 @@
-"""Pallas kernel parity (interpreter mode on CPU) + step integration."""
+"""Triton-route covariance kernel: interpreter parity on CPU, dispatch."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ssspy_tpu.ops.pallas_kernels import (
-    planar_model_traces_sc,
-    weighted_covariance_sc,
-)
-from ssspy_tpu.ops.splitc import auxiva_ip1_step_sc, gauss_mnmf_step_sc
+from ssspy_tpu.ops.pallas_kernels import weighted_covariance_sc
+from ssspy_tpu.ops.splitc import auxiva_ip1_step_sc
+
+# (M, I, T, N): frame counts that are not multiples of the kernel's frame
+# block, channel counts that are not powers of two, N != M
+_SHAPES = [(3, 17, 50, 3), (8, 64, 128, 8), (5, 9, 131, 4), (6, 3, 65, 2)]
 
 
-@pytest.mark.parametrize("shape", [(3, 17, 50, 3), (8, 64, 128, 8)])
+@pytest.mark.parametrize("shape", _SHAPES)
 def test_weighted_covariance_interpret_matches_einsum(shape):
     M, I, T, N = shape
     rng = np.random.default_rng(0)
@@ -29,7 +30,7 @@ def test_weighted_covariance_interpret_matches_einsum(shape):
     np.testing.assert_allclose(Ui1, -np.swapaxes(np.asarray(Ui1), -2, -1), atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(3, 17, 50, 3), (8, 64, 128, 8)])
+@pytest.mark.parametrize("shape", _SHAPES)
 def test_weighted_covariance_per_bin_interpret_matches_einsum(shape):
     """(N, I, T) per-bin weights — the ILRMA/FDICA/MNMF shape."""
     M, I, T, N = shape
@@ -74,61 +75,19 @@ def test_step_with_interpret_covariance_matches_einsum():
     np.testing.assert_allclose(np.asarray(W_e), np.asarray(W_p), atol=1e-4)
 
 
-def _mnmf_operands(seed=2, N=3, I=5, Tf=37, m=4):
-    """Random PSD spatial covariances + instant covariances (planar)."""
-    rng = np.random.default_rng(seed)
-
-    def psd_batch(*batch):
-        A = rng.standard_normal((*batch, m, m)) + 1j * rng.standard_normal(
-            (*batch, m, m)
-        )
-        P = A @ np.conj(np.swapaxes(A, -1, -2)) / m + 0.1 * np.eye(m)
-        return P.astype(np.complex64)
-
-    H = psd_batch(N, I)
-    XX = psd_batch(I, Tf)
-    Lamb = (rng.random((N, I, Tf)) + 0.05).astype(np.float32)
-    to_planar = lambda C: (jnp.asarray(C.real), jnp.asarray(C.imag))
-    return (jnp.asarray(Lamb), *to_planar(H), *to_planar(XX))
+def test_auto_is_einsum_on_cpu():
+    rng = np.random.default_rng(5)
+    Xr = jnp.asarray(rng.standard_normal((3, 7, 20)), jnp.float32)
+    Xi = jnp.asarray(rng.standard_normal((3, 7, 20)), jnp.float32)
+    phi = jnp.asarray(rng.random((3, 20)), jnp.float32)
+    auto = weighted_covariance_sc(Xr, Xi, phi)
+    ref = weighted_covariance_sc(Xr, Xi, phi, impl="einsum")
+    for a, b in zip(auto, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("shape", [(3, 5, 37, 4), (2, 4, 130, 8)])
-def test_model_traces_interpret_matches_gj(shape):
-    N, I, Tf, m = shape
-    ops = _mnmf_operands(N=N, I=I, Tf=Tf, m=m)
-    ref = planar_model_traces_sc(*ops, eps=1e-6, impl="gj")
-    out = planar_model_traces_sc(*ops, eps=1e-6, impl="interpret")
-    # relative tolerance: the trace contractions reorder f32 summation
-    for r, o, name in zip(ref, out, ["t1", "t2", "Pr", "Pi", "Qr", "Qi"]):
-        scale = np.max(np.abs(np.asarray(r))) + 1e-30
-        np.testing.assert_allclose(
-            np.asarray(o) / scale, np.asarray(r) / scale, atol=2e-4, err_msg=name
-        )
-
-
-def test_model_traces_padded_frames_neutral():
-    # Tf = 37 pads to 128 lanes: padded frames must be exactly neutral
-    ops37 = _mnmf_operands(N=2, I=3, Tf=37, m=4)
-    out = planar_model_traces_sc(*ops37, eps=1e-6, impl="interpret")
-    ref = planar_model_traces_sc(*ops37, eps=1e-6, impl="gj")
-    np.testing.assert_allclose(
-        np.asarray(out[2]), np.asarray(ref[2]), rtol=0, atol=2e-4 * float(np.max(np.abs(ref[2])))
-    )
-
-
-def test_mnmf_step_fused_matches_unfused():
-    Lamb, Hr, Hi, XXr, XXi = _mnmf_operands(N=3, I=5, Tf=37, m=3)
-    N, I, Tf = Lamb.shape
-    K = 2
-    rng = np.random.default_rng(7)
-    T0 = jnp.asarray((rng.random((N, I, K)) + 0.1).astype(np.float32))
-    V0 = jnp.asarray((rng.random((N, K, Tf)) + 0.1).astype(np.float32))
-    XXs = jnp.stack([XXr, XXi])
-    Hs = jnp.stack([Hr, Hi])
-
-    kw = dict(eps=1e-6, psd_impl="ridge", gmean_impl="chol")
-    T_a, V_a, H_a = gauss_mnmf_step_sc(XXs, T0, V0, Hs, fuse="off", **kw)
-    T_b, V_b, H_b = gauss_mnmf_step_sc(XXs, T0, V0, Hs, fuse="interpret", **kw)
-    np.testing.assert_allclose(np.asarray(T_b), np.asarray(T_a), rtol=2e-3, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(V_b), np.asarray(V_a), rtol=2e-3, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(H_b), np.asarray(H_a), rtol=2e-3, atol=1e-5)
+@pytest.mark.parametrize("impl,match", [("triton", "CUDA"), ("pallas", "unknown impl")])
+def test_unavailable_impls_raise(impl, match):
+    x = jnp.zeros((2, 3, 8), jnp.float32)
+    with pytest.raises(ValueError, match=match):
+        weighted_covariance_sc(x, x, jnp.ones((2, 8), jnp.float32), impl=impl)

@@ -149,7 +149,7 @@ def test_whiten_sc_isotropic_bin_stays_full_rank():
 
 class TestTopEigvecShiftInvert:
     """The eigendecomposition-free dominant-eigenvector path
-    (``eig_impl="solve"``) behind FasterIVA's f32 TPU fast path."""
+    (``eig_impl="solve"``) of FasterIVA."""
 
     def test_matches_eigh_top_eigenvector(self):
         from ssspy_tpu.ops.splitc import _top_eigvec_shift_invert_sc

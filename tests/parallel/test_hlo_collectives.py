@@ -5,9 +5,9 @@ on the claim that the per-bin-independent scan bodies issue no
 inter-device communication beyond the mathematically intrinsic
 reductions (cross-bin contrast norms, bin-coupled NMF contractions).
 On a virtual-CPU mesh a stray ``all-gather`` from a bad layout costs
-nothing and passes every numeric test; on a real 8-chip ICI it is the
-difference between linear and flat scaling. This is the one multi-chip
-performance property checkable without multi-chip hardware: lower +
+nothing and passes every numeric test; across real cards it is the
+difference between linear and flat scaling. This is the one multi-card
+performance property checkable without the cards: lower +
 compile each runner on the 8-virtual-device mesh and pin the exact
 collective counts in the SPMD-partitioned HLO.
 
@@ -19,13 +19,12 @@ AuxIVA-IP2, ~42 + 48 in IPSDTA — and the HVA mask sliced a jnp DFT
 constant (2 collective-permutes). All were invisible to the numeric
 equivalence tests.
 
-``SSSPY_TPU_FORCE_TPU_IMPL=1`` compiles the TPU-representative XLA
-implementations (pivot-free Gauss-Jordan instead of LU, whose pivot
-scatter on a sharded axis all-gathers) while Pallas dispatch keeps the
-real-backend probe.
+The audit compiles the program a GPU compiles: the ``gpu_impls``
+fixture resolves every ``impl="auto"`` from the GPU entries of
+:mod:`ssspy_tpu.ops.defaults` (e.g. the waveform runner's pivot-free
+solve, chosen because LU's pivot scatter on a sharded axis all-gathers).
 """
 
-import os
 import re
 from collections import Counter
 
@@ -34,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import ssspy_tpu.ops.defaults as defaults
 import ssspy_tpu.parallel as par
 
 # instruction DEFINITIONS only (operand uses appear as %all-reduce.N);
@@ -45,12 +45,8 @@ _COLLECTIVE = re.compile(
 
 
 @pytest.fixture(autouse=True)
-def _force_tpu_impl():
-    os.environ["SSSPY_TPU_FORCE_TPU_IMPL"] = "1"
-    try:
-        yield
-    finally:
-        os.environ.pop("SSSPY_TPU_FORCE_TPU_IMPL", None)
+def gpu_impls(monkeypatch):
+    monkeypatch.setattr(defaults, "_platform", lambda: "gpu")
 
 
 def _collective_counts(jitted, *args):
@@ -271,7 +267,7 @@ def test_runner_collective_counts(name, builder, expected):
     counts = _collective_counts(jitted, *args)
 
     # the load-bearing property: NO resharding collectives anywhere —
-    # a single stray all-gather flattens ICI scaling on real hardware
+    # a single stray all-gather flattens scaling on real hardware
     for op in ("all-gather", "all-to-all", "collective-permute", "reduce-scatter"):
         assert counts.get(op, 0) == 0, (name, counts)
 

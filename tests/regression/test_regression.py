@@ -346,7 +346,7 @@ def _nmf_part_init(n_sources, n_bins, n_frames, n_basis=2, seed=5):
 def test_gauss_ilrma_ipa_partitioning_regression(source):
     """Partitioned (shared-basis) GaussILRMA with the IPA spatial update —
     reference-valid config (ssspy/bss/ilrma.py:1811-1821) newly reachable
-    on the SC engine (VERDICT r4 item #3)."""
+    on the SC engine."""
     from ssspy_tpu.bss.ilrma import GaussILRMA
 
     X = _input()

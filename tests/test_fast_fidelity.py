@@ -1,10 +1,10 @@
-"""BASELINE fidelity contract: each split-complex fast-path variant must
+"""Fidelity contract: each split-complex fast-path variant must
 reach separation quality within 0.1 dB SI-SDR of the NumPy reference
 (tky823/ssspy) run on the same mixture with the same initialization.
 
-This is the driver-provided acceptance criterion (BASELINE.md: "SI-SDR
-within 0.1 dB of NumPy reference"), asserted directly per variant rather
-than implied by elementwise tolerances.
+The criterion is "SI-SDR within 0.1 dB of the NumPy reference",
+asserted directly per variant rather than implied by elementwise
+tolerances.
 
 Reference-free fallback: when the reference is not importable, each test
 compares against the pinned reference SI-SDR scalar in

@@ -1,4 +1,4 @@
-"""Hard-scenario fidelity contract (VERDICT r3 item #6).
+"""Hard-scenario fidelity contract.
 
 The easy fidelity tier (tests/test_fast_fidelity.py) runs on short
 2-source synthetic mixtures; the reference's own suites run on SiSEC2010
@@ -17,8 +17,7 @@ Two tiers:
   useless without alignment at 4 sources; both solvers must recover a
   large, pinned-magnitude gain.
 
-Per-family coverage (VERDICT r4 item #4 — every family has a pin or a
-cited exclusion):
+Per-family coverage (every family has a pin or a cited exclusion):
 - PINNED: AuxIVA (0.1), GaussILRMA (0.1), cACGMM (0.1), AuxFDICA (0.4,
   annotated), PDSIVA (0.1, gap measured 0.000), GaussIPSDTA VCD (0.1,
   512-window, gap measured 0.000), FastGaussMNMF (0.5, annotated — f32
@@ -31,7 +30,7 @@ cited exclusion):
     a poor result — there is no stable operating point to pin (see
     docs/fast-paths.md and tests/bss/test_hva.py's envelope assertions).
   * ADMMIVA: same L21 objective and near-identical trajectory class as
-    the pinned PDSIVA row (the VERDICT asked for one prox row); its
+    the pinned PDSIVA row (one prox row suffices); its
     easy-tier contract lives in tests/test_fast_fidelity.py.
   * dense GaussMNMF: one iteration costs minutes at 2049 bins in the
     NumPy reference (the instant-covariance model is (I, T, M, M));
@@ -354,7 +353,7 @@ class TestPermutationSolverStress:
 
 
 def test_hard_gauss_ipsdta_si_sdr_matches_reference(hard_mixture):
-    """GaussIPSDTA (MM + VCD) hard-tier contract — VERDICT r4 item #4.
+    """GaussIPSDTA (MM + VCD) hard-tier contract.
 
     Runs on a 512-sample window (257 bins): the PSDTF blocks are dense
     J x J covariances, so the 4096-window's 2049 bins would make both
@@ -416,7 +415,7 @@ def test_hard_gauss_ipsdta_si_sdr_matches_reference(hard_mixture):
 
 
 def test_hard_pds_iva_si_sdr_matches_reference(hard_mixture):
-    """PDSIVA hard-tier contract — VERDICT r4 item #4 (prox row).
+    """PDSIVA hard-tier contract (prox row).
 
     Absolute quality on this scenario is poor in BOTH implementations
     (measured -8.75 dB at 50 iterations — the L21-PDS iteration needs
@@ -446,7 +445,7 @@ def test_hard_pds_iva_si_sdr_matches_reference(hard_mixture):
 
 
 def test_hard_fast_gauss_mnmf_si_sdr_matches_reference(hard_mixture):
-    """FastGaussMNMF hard-tier contract — VERDICT r4 item #4.
+    """FastGaussMNMF hard-tier contract.
 
     Tolerance is 0.5 dB, not 0.1: the family iterates four coupled
     multiplicative factor updates per step, and over 40 f32 iterations
